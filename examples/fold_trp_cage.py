@@ -13,12 +13,12 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), '..'))
 
-from upside_md_tpu.bench_systems import (ENVIRONMENT, RAMA_REF, SIDECHAIN,
+from upside_md.bench_systems import (ENVIRONMENT, RAMA_REF, SIDECHAIN,
                                          TRP_CAGE, have_reference_params)
-from upside_md_tpu.config.builder import (ConfigBuilder,
+from upside_md.config.builder import (ConfigBuilder,
                                           uniform_rama_maps_from_reference)
-from upside_md_tpu.io.trajectory import load_upside_traj, write_pdb, write_vtf
-from upside_md_tpu.run import run_upside
+from upside_md.io.trajectory import load_upside_traj, write_pdb, write_vtf
+from upside_md.run import run_upside
 
 
 def main():

@@ -12,11 +12,11 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), '..'))
 
-from upside_md_tpu.bench_systems import RAMA_REF, TRP_CAGE
-from upside_md_tpu.config.builder import (ConfigBuilder,
+from upside_md.bench_systems import RAMA_REF, TRP_CAGE
+from upside_md.config.builder import (ConfigBuilder,
                                           uniform_rama_maps_from_reference)
-from upside_md_tpu.md.replica import even_odd_swap_sets
-from upside_md_tpu.run import run_upside
+from upside_md.md.replica import even_odd_swap_sets
+from upside_md.run import run_upside
 
 
 def main():

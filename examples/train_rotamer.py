@@ -15,7 +15,7 @@ This demo reproduces that loop on Trp-cage with the shipped libraries:
   4. train the degraded table with the energy-gap loss,
   5. report rotamer-state and chi1-bin accuracy before/after.
 
-Run:  python examples/train_rotamer.py   (CPU ok; TPU faster)
+Run:  python examples/train_rotamer.py   (CPU ok; GPU faster)
 """
 
 import os
@@ -28,10 +28,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
 import jax.numpy as jnp
 
-from upside_md_tpu.bench_systems import (SIDECHAIN, TRP_CAGE,
+from upside_md.bench_systems import (SIDECHAIN, TRP_CAGE,
                                          build_full_system)
-from upside_md_tpu.md.sim import Simulation
-from upside_md_tpu.training import (energy_gap_loss, fit_packed,
+from upside_md.md.sim import Simulation
+from upside_md.training import (energy_gap_loss, fit_packed,
                                     rotamer_node_marginals, rotamer_packings,
                                     rotamer_state_restricted_system)
 
@@ -49,7 +49,7 @@ def state_accuracy(system, pos_batch, params, target_states):
 def chi1_bin_accuracy(seq3, states_pred, states_true):
     """Map library states to chi1 bins (120-degree wells) and compare."""
     try:
-        from upside_md_tpu.chi1 import Chi1Predict
+        from upside_md.chi1 import Chi1Predict
         cp = Chi1Predict(SIDECHAIN)
     except Exception:
         return None

@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from upside_md_tpu.nodes.base import NodeSpec, resolve_node_type
+from upside_md.nodes.base import NodeSpec, resolve_node_type
 
 
 def spec(name, args, consts=None, params=None):

@@ -4,9 +4,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from upside_md_tpu.config.builder import (ConfigBuilder, apply_secstr_bias)
-from upside_md_tpu.config.reader import load_system
-from upside_md_tpu.md.mc import JumpSampler
+from upside_md.config.builder import (ConfigBuilder, apply_secstr_bias)
+from upside_md.config.reader import load_system
+from upside_md.md.mc import JumpSampler
 
 
 def _base(tmp_path, seq='MKVLAEGARSKV', **kw):

@@ -5,8 +5,8 @@ import os
 import numpy as np
 import pytest
 
-from upside_md_tpu.chi1 import Chi1Predict, predict_chi1_from_pdb
-from upside_md_tpu.config.builder import random_initial_config
+from upside_md.chi1 import Chi1Predict, predict_chi1_from_pdb
+from upside_md.config.builder import random_initial_config
 
 from test_io import synthetic_pdb
 
@@ -22,7 +22,7 @@ SEQ3 = ['MET', 'LYS', 'VAL', 'LEU', 'PHE', 'GLU', 'GLY', 'ALA', 'ARG',
 def test_chi1_cli(tmp_path):
     """The predict_chi1 CLI writes the reference's column layout
     (predict_chi1.py:118-130) and prints the evaluation-time metric."""
-    from upside_md_tpu.chi1 import main
+    from upside_md.chi1 import main
 
     coords = random_initial_config(len(SEQ3), seed=4)
     pdb = tmp_path / "in.pdb"

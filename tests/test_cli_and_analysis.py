@@ -6,13 +6,13 @@ import h5py
 import numpy as np
 import pytest
 
-from upside_md_tpu.analysis import (attr_overview, diagnose_traj,
+from upside_md.analysis import (attr_overview, diagnose_traj,
                                     energy_blame, radius_of_gyration, rmsd)
-from upside_md_tpu.config.builder import ConfigBuilder, random_initial_config
-from upside_md_tpu.io.trajectory import (load_upside_traj,
+from upside_md.config.builder import ConfigBuilder, random_initial_config
+from upside_md.io.trajectory import (load_upside_traj,
                                          reconstruct_virtual_atoms,
                                          write_pdb, write_vtf)
-from upside_md_tpu.run import continue_sim, run_upside, swap_table2d
+from upside_md.run import continue_sim, run_upside, swap_table2d
 
 SEQ = 'MKVLFEGAR'
 
@@ -97,14 +97,14 @@ def test_analysis_tools(tmp_path, rng):
     d = diagnose_traj(path)
     assert np.isfinite(d['mean_ke'])
 
-    from upside_md_tpu.config.reader import load_system
+    from upside_md.config.reader import load_system
     system, params, pos, aux = load_system(path)
     blame = energy_blame(system, params, pos)
     assert 'rama_map_pot' in blame
 
     # rmsd sanity: rotated copy has ~0 rmsd
     x = rng.normal(size=(11, 3))
-    from upside_md_tpu.ops.geometry import axis_angle_to_rot
+    from upside_md.ops.geometry import axis_angle_to_rot
     import jax.numpy as jnp
     R = np.asarray(axis_angle_to_rot(jnp.asarray(0.7),
                                      jnp.asarray([0., 0., 1.])))
@@ -135,7 +135,7 @@ def test_sigint_graceful_shutdown(tmp_path):
 
     import h5py
 
-    from upside_md_tpu.config.builder import ConfigBuilder
+    from upside_md.config.builder import ConfigBuilder
 
     b = ConfigBuilder(">x\nAAAAAAAA\n", seed=1)
     b.add_backbone_springs()
@@ -146,7 +146,7 @@ def test_sigint_graceful_shutdown(tmp_path):
     env["JAX_PLATFORMS"] = "cpu"
     env["PYTHONUNBUFFERED"] = "1"
     proc = subprocess.Popen(
-        [sys.executable, "-m", "upside_md_tpu.cli", path,
+        [sys.executable, "-m", "upside_md.cli", path,
          "--duration", "2000.0", "--frame-interval", "0.25",
          "--temperature", "0.7", "--seed", "4"],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -188,7 +188,7 @@ def test_recycle_structures(tmp_path):
     slots (reference upside_config.py:1296-1301 semantics)."""
     import pickle
 
-    from upside_md_tpu.cli import recycle_structures
+    from upside_md.cli import recycle_structures
 
     rng = np.random.default_rng(3)
     structs = rng.normal(size=(2, 12, 3))
@@ -220,7 +220,7 @@ def test_cli_initial_structures_flag(tmp_path):
 
     import h5py
 
-    from upside_md_tpu.config.builder import ConfigBuilder
+    from upside_md.config.builder import ConfigBuilder
 
     paths = []
     for i in range(3):
@@ -245,7 +245,7 @@ def test_cli_initial_structures_flag(tmp_path):
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
     r = subprocess.run(
-        [sys.executable, "-m", "upside_md_tpu.cli", *paths,
+        [sys.executable, "-m", "upside_md.cli", *paths,
          "--duration", "0.1", "--frame-interval", "0.05",
          "--disable-recentering", "--initial-structures", pkl],
         env=env, capture_output=True, text=True, timeout=600,

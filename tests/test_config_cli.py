@@ -8,8 +8,8 @@ import h5py
 import numpy as np
 import pytest
 
-from upside_md_tpu.config.cli import main as config_main, parse_segments
-from upside_md_tpu.config.reader import load_system
+from upside_md.config.cli import main as config_main, parse_segments
+from upside_md.config.reader import load_system
 
 from test_rama_library import make_library
 
@@ -116,7 +116,7 @@ def test_tables_and_restraints_cli(tmp_path, rng):
 
 
 def test_fix_rotamer_restype_check(tmp_path):
-    from upside_md_tpu.config.cli import _read_fix_rotamer
+    from upside_md.config.cli import _read_fix_rotamer
     table = tmp_path / "fix.dat"
     table.write_text("residue restype rotamer\n0 ALA 1\n")
     with pytest.raises(SystemExit):

@@ -5,10 +5,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from upside_md_tpu.config.builder import ConfigBuilder
-from upside_md_tpu.config.edit import (add_target_information, break_chains,
+from upside_md.config.builder import ConfigBuilder
+from upside_md.config.edit import (add_target_information, break_chains,
                                        find_multichain_terms)
-from upside_md_tpu.config.reader import load_system
+from upside_md.config.reader import load_system
 
 SEQ = 'MKVLFEGARTIS'
 
@@ -98,7 +98,7 @@ def test_add_target_information(tmp_path):
 
 
 def test_cli_roundtrip(tmp_path):
-    from upside_md_tpu.config.edit import main
+    from upside_md.config.edit import main
     path, b = _plain_config(tmp_path)
     main(['break-chains', path, '--chain-first-residue', '6',
           '--remove-pivot'])

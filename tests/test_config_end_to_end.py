@@ -10,11 +10,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from upside_md_tpu.config.builder import (ConfigBuilder,
+from upside_md.config.builder import (ConfigBuilder,
                                           uniform_rama_maps_from_reference)
-from upside_md_tpu.config.reader import load_system
-from upside_md_tpu.md.mc import PivotSampler
-from upside_md_tpu.md.sim import Simulation
+from upside_md.config.reader import load_system
+from upside_md.md.mc import PivotSampler
+from upside_md.md.sim import Simulation
 
 PARAM_DIR = '/root/reference/parameters'
 RAMA_REF = f'{PARAM_DIR}/common/rama_reference.pkl'
@@ -89,7 +89,7 @@ def test_backbone_pivot_mc(tmp_path):
     sampler = PivotSampler.from_tables(pm['pivot_atom'], pm['pivot_range'],
                                        pm['pivot_restype'],
                                        pm['proposal_pot'])
-    from upside_md_tpu.md.mc import metropolis_step
+    from upside_md.md.mc import metropolis_step
     new_pos, acc = metropolis_step(
         jax.random.PRNGKey(0), jnp.asarray(pos), 1.0,
         lambda p: system.energy(p, params), sampler)
@@ -137,7 +137,7 @@ def test_full_forcefield_md_short(tmp_path):
 def test_10A_cutoff_family(tmp_path):
     """BASELINE config 3: the PARAM_10A_CUTOFF parameter family, resolved
     at runtime from table shapes (the reference needs a rebuild)."""
-    from upside_md_tpu.bench_systems import build_10A_system
+    from upside_md.bench_systems import build_10A_system
     system, params, pos, aux = build_10A_system(seq='MTYKLILNGKTLKGETTTE')
     total, outputs, per_term = system.evaluate(jnp.asarray(pos), params)
     assert np.isfinite(float(total))

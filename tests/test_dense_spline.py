@@ -4,7 +4,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from upside_md_tpu.ops.spline import (bspline_window_weights, eval_bspline,
+from upside_md.ops.spline import (bspline_window_weights, eval_bspline,
                                       eval_bspline_dense,
                                       eval_clamped_bspline)
 

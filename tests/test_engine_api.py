@@ -5,8 +5,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from upside_md_tpu.engine import Upside
-from upside_md_tpu.system import freeze_static_nodes
+from upside_md.engine import Upside
+from upside_md.system import freeze_static_nodes
 
 from test_cli_and_analysis import small_config
 
@@ -76,8 +76,8 @@ def test_count_edges_by_type_channels():
     import pytest
     if not os.path.exists("/root/reference/parameters/ff_1/sidechain.h5"):
         pytest.skip("no parameter libraries")
-    from upside_md_tpu.bench_systems import TRP_CAGE, build_full_system
-    from upside_md_tpu.engine import Upside
+    from upside_md.bench_systems import TRP_CAGE, build_full_system
+    from upside_md.engine import Upside
 
     system, params, pos, aux = build_full_system(seq=TRP_CAGE)
     eng = Upside(system, params, pos)

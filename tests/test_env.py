@@ -3,9 +3,9 @@
 import numpy as np
 import jax.numpy as jnp
 
-from upside_md_tpu import build_system
-from upside_md_tpu.nodes.membrane import make_membrane_params
-from upside_md_tpu.ops.spline import fit_clamped_interp_bspline
+from upside_md import build_system
+from upside_md.nodes.membrane import make_membrane_params
+from upside_md.ops.spline import fit_clamped_interp_bspline
 
 from helpers import affine_spec, chain_positions, spec
 from test_nodes import check_fd

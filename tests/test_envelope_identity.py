@@ -9,8 +9,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from upside_md_tpu.config.reader import load_system
-from upside_md_tpu.nodes.rotamer import rotamer_diagnostics
+from upside_md.config.reader import load_system
+from upside_md.nodes.rotamer import rotamer_diagnostics
 
 from test_config_end_to_end import SIDECHAIN, build_full_config, needs_params
 

@@ -2,7 +2,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from upside_md_tpu.ops.geometry import (
+from upside_md.ops.geometry import (
     dihedral, quat_to_rot, axis_angle_to_rot, rigid_alignment, wrap_angle)
 
 

@@ -7,7 +7,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from upside_md_tpu import build_system
+from upside_md import build_system
 
 from helpers import spec
 

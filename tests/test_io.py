@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from upside_md_tpu.config.builder import random_initial_config
-from upside_md_tpu.io.logger import H5Logger
-from upside_md_tpu.io.pdb import extract_initial_structure
+from upside_md.config.builder import random_initial_config
+from upside_md.io.logger import H5Logger
+from upside_md.io.pdb import extract_initial_structure
 
 
 def synthetic_pdb(seq_three, coords):

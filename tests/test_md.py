@@ -5,12 +5,12 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from upside_md_tpu import build_system
-from upside_md_tpu.md.mc import JumpSampler, PivotSampler, metropolis_step
-from upside_md_tpu.md.replica import (ReplicaExchange, even_odd_swap_sets,
+from upside_md import build_system
+from upside_md.md.mc import JumpSampler, PivotSampler, metropolis_step
+from upside_md.md.replica import (ReplicaExchange, even_odd_swap_sets,
                                       parse_swap_sets)
-from upside_md_tpu.md.sim import Simulation
-from upside_md_tpu.ops.geometry import dihedral
+from upside_md.md.sim import Simulation
+from upside_md.ops.geometry import dihedral
 
 from helpers import chain_positions, spec
 
@@ -223,7 +223,7 @@ def test_hamiltonian_selective_param_stacking(rng):
     """A Hamiltonian ensemble advanced with only the differing leaves
     stacked (stack_param_ensembles spec) matches the fully-stacked path
     exactly, and the spec names only the varied leaf."""
-    from upside_md_tpu.md.sim import param_axes, stack_param_ensembles
+    from upside_md.md.sim import param_axes, stack_param_ensembles
 
     n_rep, n_atom = 3, 5
     sys = harmonic_system(n_atom)

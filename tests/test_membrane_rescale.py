@@ -13,7 +13,7 @@ import h5py
 import numpy as np
 import pytest
 
-from upside_md_tpu.config.builder import ConfigBuilder
+from upside_md.config.builder import ConfigBuilder
 
 SEQ = "ACDEFGHIKLMNPQRSTVWY"
 RESNAMES = ["ALA", "ARG", "ASN", "ASP", "CYS", "GLN", "GLU", "GLY", "HIS",

@@ -3,9 +3,9 @@
 import numpy as np
 import jax.numpy as jnp
 
-from upside_md_tpu.config.builder import ConfigBuilder
-from upside_md_tpu.config.merge import merge_configs
-from upside_md_tpu.config.reader import load_system
+from upside_md.config.builder import ConfigBuilder
+from upside_md.config.merge import merge_configs
+from upside_md.config.reader import load_system
 
 
 def _chain_config(tmp_path, name, seq, seed):

@@ -4,8 +4,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-import upside_md_tpu.nodes.rotamer as rot
-from upside_md_tpu.ops.pairs import (neighbor_list, quadspline_coverage,
+import upside_md.nodes.rotamer as rot
+from upside_md.ops.pairs import (neighbor_list, quadspline_coverage,
                                      quadspline_coverage_nl,
                                      gather_pair_params, scatter_rows,
                                      sequence_exclusion_mask)
@@ -75,7 +75,7 @@ def test_rotamer_nl_matches_dense(rng, monkeypatch):
     from test_rotamer import make_bead_system
     n_rot = [3, 6, 3, 1, 6, 3, 3, 6, 1, 3] * 5   # 50 residues, ~180 beads
     specs, beads, e1, consts, table = make_bead_system(rng, n_rot, spread=2.0)
-    from upside_md_tpu import build_system
+    from upside_md import build_system
     sys_ = build_system(1, specs)
     params = sys_.make_params()
 

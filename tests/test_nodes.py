@@ -7,8 +7,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from upside_md_tpu import build_system
-from upside_md_tpu.ops.spline import fit_periodic_bspline_2d
+from upside_md import build_system
+from upside_md.ops.spline import fit_periodic_bspline_2d
 
 from helpers import affine_spec, chain_positions, rama_coord_spec, spec
 

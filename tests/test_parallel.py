@@ -5,14 +5,14 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from upside_md_tpu.md.sim import Simulation
-from upside_md_tpu.parallel.mesh import (make_replica_mesh,
+from upside_md.md.sim import Simulation
+from upside_md.parallel.mesh import (make_replica_mesh,
                                          shard_replica_state,
                                          sharded_advance,
                                          sharded_training_step)
 
 from helpers import spec
-from upside_md_tpu import build_system
+from upside_md import build_system
 
 
 def harmonic_system(n_atom, k=3.0):
@@ -79,11 +79,87 @@ def test_sharded_training_step(rng):
 
 
 def _full_ff_or_skip():
-    from upside_md_tpu.bench_systems import (TRP_CAGE, build_full_system,
-                                             have_reference_params)
-    if not have_reference_params():
-        pytest.skip("reference parameter libraries not mounted")
+    from upside_md.bench_systems import TRP_CAGE, build_full_system
     return build_full_system(seq=TRP_CAGE)
+
+
+def _bp_system():
+    """A small graph with a rotamer node, so the advance holds the BP
+    solver's while_loop (the loop whose predicate plain jit would turn
+    into a cross-device all-reduce)."""
+    from test_rotamer import make_bead_system
+    specs, beads, e1, consts, table = make_bead_system(
+        np.random.default_rng(5), [2, 3, 2], spread=5.0)
+    consts["tol"] = 1e-6
+    consts["damping"] = 0.4
+    specs.append(spec("atom_pos_spring", ["pos"],
+                      {"id": np.arange(4, dtype=np.int32)},
+                      {"x0": np.zeros((4, 3)),
+                       "spring_const": np.full(4, 2.0)}))
+    return build_system(4, specs)
+
+
+@pytest.mark.parametrize("n_dev", [2, 4])
+def test_sharded_advance_matches_single_device(rng, n_dev):
+    """sharded_advance over an n-device mesh equals one device running
+    the same replicas, BP solver and warm-start cache included."""
+    sys = _bp_system()
+    params = sys.make_params()
+    sim = Simulation(sys, dt=0.01, thermostat_interval=0.03,
+                     do_recenter=False)
+    n_rep = 2 * n_dev
+    state = sim.initial_state(0.3 * rng.normal(size=(4, 3)), params, seed=2,
+                              temperature=0.5 + 0.1 * np.arange(n_rep),
+                              n_replica=n_rep)
+    out = sharded_advance(sim, make_replica_mesh(n_dev), 4)(state, params)
+    one = jax.device_put(state, jax.devices()[0])
+    ref = sim.advance(one, params, 4, True)
+    assert len(out.pos.sharding.device_set) == n_dev
+    # each device sweeps its own replicas to convergence, one device all
+    # of them: beliefs agree to the BP tol, positions far below it
+    np.testing.assert_allclose(np.asarray(out.pos), np.asarray(ref.pos),
+                               atol=1e-6)
+    np.testing.assert_allclose(np.asarray(out.cache["rotamer"].node_belief),
+                               np.asarray(ref.cache["rotamer"].node_belief),
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("n_dev", [2, 4])
+def test_sharded_advances_hold_no_collectives(n_dev):
+    """Replicas share nothing between swaps: neither compiled sharded
+    advance (temperature or Hamiltonian ensemble) holds a cross-device
+    collective, while a psum'd program does."""
+    from upside_md.md.sim import stack_param_ensembles
+    from upside_md.parallel.mesh import (collectives_in,
+                                         sharded_hamiltonian_advance)
+    sys = _bp_system()
+    params = sys.make_params()
+    mesh = make_replica_mesh(n_dev)
+    sim = Simulation(sys, dt=0.01, do_recenter=False)
+    n_rep = 2 * n_dev
+    state = shard_replica_state(
+        sim.initial_state(np.zeros((4, 3)), params, n_replica=n_rep), mesh)
+    adv = sharded_advance(sim, mesh, 2)
+    assert collectives_in(
+        adv.compiled.lower(state, params).compile().as_text()) == []
+
+    per_slot = []
+    for i in range(n_rep):
+        p = {k: dict(v) for k, v in params.items()}
+        p["atom_pos_spring"]["spring_const"] = \
+            params["atom_pos_spring"]["spring_const"] * (1.0 + 0.1 * i)
+        per_slot.append(p)
+    mixed, pspec = stack_param_ensembles(per_slot)
+    h_adv, h_params = sharded_hamiltonian_advance(sim, mesh, 2, mixed, pspec)
+    h_state = shard_replica_state(
+        sim.initial_state(np.zeros((4, 3)), mixed, n_replica=n_rep), mesh)
+    assert collectives_in(
+        h_adv.compiled.lower(h_state, h_params).compile().as_text()) == []
+
+    step = sharded_training_step(sys, lambda p, g, s: (p, s), mesh)
+    hlo = step.lower(params, (), jnp.zeros((n_rep, 4, 3)),
+                     jnp.zeros((n_rep,))).compile().as_text()
+    assert "all-reduce" in collectives_in(hlo)
 
 
 def test_sharded_full_forcefield_advance(rng):
@@ -111,8 +187,8 @@ def test_sharded_hamiltonian_full_forcefield_advance(rng):
     """BASELINE config 4's multi-chip shape: a full-FF HAMILTONIAN
     ensemble (per-slot spring ladder, shared sidechain tables) advanced
     over the 8-device mesh matches the unsharded path."""
-    from upside_md_tpu.md.sim import stack_param_ensembles
-    from upside_md_tpu.parallel.mesh import sharded_hamiltonian_advance
+    from upside_md.md.sim import stack_param_ensembles
+    from upside_md.parallel.mesh import sharded_hamiltonian_advance
 
     system, params, pos, aux = _full_ff_or_skip()
     n_rep = 8
@@ -145,7 +221,7 @@ def test_sharded_hamiltonian_full_forcefield_advance(rng):
 def test_sharded_full_forcefield_rex_and_training(rng):
     """Replica exchange collective + psum training step on the full
     forcefield over the mesh."""
-    from upside_md_tpu.md.replica import ReplicaExchange, even_odd_swap_sets
+    from upside_md.md.replica import ReplicaExchange, even_odd_swap_sets
 
     system, params, pos, aux = _full_ff_or_skip()
     n_rep = 8

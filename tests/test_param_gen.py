@@ -4,10 +4,10 @@ and run it through the full rotamer pipeline."""
 import numpy as np
 import jax.numpy as jnp
 
-from upside_md_tpu.analysis import rama_density, rdc, sim_timeseries
-from upside_md_tpu.config.builder import ConfigBuilder, random_initial_config
-from upside_md_tpu.config.reader import load_system
-from upside_md_tpu.param_gen import (build_sidechain_from_internal,
+from upside_md.analysis import rama_density, rdc, sim_timeseries
+from upside_md.config.builder import ConfigBuilder, random_initial_config
+from upside_md.config.reader import load_system
+from upside_md.param_gen import (build_sidechain_from_internal,
                                      kmeans_bead_centers,
                                      rama_binned_rotamer_probs,
                                      write_placement_library)

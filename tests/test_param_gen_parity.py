@@ -43,7 +43,7 @@ MARGINALIZED = {'ARG', 'LYS', 'GLU', 'GLN', 'MET', 'ASN', 'ASP', 'PRO',
 
 @pytest.fixture(scope="module")
 def comparison():
-    from upside_md_tpu.param_gen import regenerate_fixed_centers
+    from upside_md.param_gen import regenerate_fixed_centers
     return regenerate_fixed_centers(SIDECHAIN)
 
 
@@ -91,7 +91,7 @@ def test_probability_estimator_statistical_parity(rng):
     probability table from samples drawn from it (the estimator half of
     the library pipeline, per-(phi,psi)-bin)."""
     import h5py
-    from upside_md_tpu.param_gen import rama_binned_rotamer_probs
+    from upside_md.param_gen import rama_binned_rotamer_probs
 
     with h5py.File(SIDECHAIN, 'r') as f:
         ro = [s.decode() for s in f['restype_order'][:]]

@@ -5,7 +5,7 @@ import h5py
 import numpy as np
 import pytest
 
-from upside_md_tpu.config.builder import (ConfigBuilder, mixture_potential,
+from upside_md.config.builder import (ConfigBuilder, mixture_potential,
                                           read_weighted_maps)
 
 
@@ -59,7 +59,7 @@ def test_builder_from_library(tmp_path, rng):
     b.add_backbone_springs()
     b.add_rama_map_pot_from_library(lib, sheet_mixing=-0.268)
     path = b.write(str(tmp_path / 'sys.up'))
-    from upside_md_tpu.config.reader import load_system
+    from upside_md.config.reader import load_system
     import jax.numpy as jnp
     system, params, pos, aux = load_system(path)
     assert np.isfinite(float(system.energy(jnp.asarray(pos), params)))

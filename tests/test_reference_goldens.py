@@ -23,10 +23,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from upside_md_tpu.nodes.hbond import hbond_pair_strength
-from upside_md_tpu.nodes.rotamer import EPS, bethe_free_energy
-from upside_md_tpu.ops.pairs import quadspline_coverage
-from upside_md_tpu.ops.spline import eval_bspline, eval_clamped_bspline
+from upside_md.nodes.hbond import hbond_pair_strength
+from upside_md.nodes.rotamer import EPS, bethe_free_energy
+from upside_md.ops.pairs import quadspline_coverage
+from upside_md.ops.spline import eval_bspline, eval_clamped_bspline
 
 # ---------------------------------------------------------------------------
 # Reference-formula transliterations (float64; no repo kernel code)
@@ -313,18 +313,18 @@ def test_quadspline_gradient_vs_golden_partition():
         np.testing.assert_allclose(np.asarray(g2), d2, rtol=1e-8, atol=1e-12)
 
 
-def test_quadspline_pallas_interpret_vs_golden():
-    """The Mosaic kernel source (interpret mode) against the same C++
-    fixtures: links ops/pallas_quadspline.py to bead_interaction.h:30-84
-    directly, not just to the XLA formulation."""
-    from upside_md_tpu.ops.pallas_quadspline import quadspline_pallas
+def test_pair_coverage_vs_golden():
+    """The pair-grid wrapper every pair node calls (ops/pairs.py
+    pair_coverage: parameter gather, cutoff mask, dense-window splines)
+    against the same C++ fixtures, in float32 as the device runs it."""
+    from upside_md.ops.pairs import pair_coverage
     table = jnp.asarray(QS_PARAMS, jnp.float32)[None, None, :]
-    t = jnp.zeros((1,), jnp.int32)
+    t = np.zeros((1,), np.int32)
     mask = jnp.ones((1, 1), bool)
     for x1, x2, cov, _d1, _d2 in QS_GOLDEN:
-        got = quadspline_pallas((QS_KA, QS_K, QS_INV_DX), True, table, t, t,
-                                jnp.asarray(x1, jnp.float32)[None],
-                                jnp.asarray(x2, jnp.float32)[None], mask)
+        got = pair_coverage(table, t, t, jnp.asarray(x1, jnp.float32)[None],
+                            jnp.asarray(x2, jnp.float32)[None], mask,
+                            QS_KA, QS_K, 1.0 / QS_INV_DX)
         np.testing.assert_allclose(float(got[0, 0]), cov, rtol=2e-5)
 
 

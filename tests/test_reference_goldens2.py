@@ -28,12 +28,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from upside_md_tpu.nodes.env import _environment_coverage
-from upside_md_tpu.nodes.membrane import (_membrane_potential,
+from upside_md.nodes.env import _environment_coverage
+from upside_md.nodes.membrane import (_membrane_potential,
                                           make_membrane_params)
-from upside_md_tpu.nodes.radial import _radial_energy
-from upside_md_tpu.ops.sigmoid import compact_sigmoid
-from upside_md_tpu.ops.spline import (eval_clamped_interp,
+from upside_md.nodes.radial import _radial_energy
+from upside_md.ops.sigmoid import compact_sigmoid
+from upside_md.ops.spline import (eval_clamped_interp,
                                       eval_periodic_bspline_2d,
                                       fit_clamped_interp_bspline,
                                       fit_periodic_bspline_2d)
@@ -618,7 +618,7 @@ def test_radial_edge_vs_golden():
 
 
 def test_integration_cycle_vs_golden():
-    from upside_md_tpu.md.integrator import integration_cycle
+    from upside_md.md.integrator import integration_cycle
 
     def deriv_fn(p, stage):
         k = jnp.asarray([1.3, 0.4, 2.1], p.dtype)
@@ -635,7 +635,7 @@ def test_integration_cycle_vs_golden():
 
 
 def test_ou_thermostat_vs_golden():
-    from upside_md_tpu.md.thermostat import OUThermostat
+    from upside_md.md.thermostat import OUThermostat
     for tau, dlt, temp, ms, ns in OU_CASES:
         th = OUThermostat(tau, dlt)
         np.testing.assert_allclose(float(th.mom_scale), ms, rtol=1e-12)
@@ -655,7 +655,7 @@ def _steric_consts():
 
 
 def _steric_energy(aff_input):
-    from upside_md_tpu.nodes.steric import _backbone_pairs
+    from upside_md.nodes.steric import _backbone_pairs
     return _backbone_pairs(_steric_consts(), {}, (aff_input,), {})
 
 

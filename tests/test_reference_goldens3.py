@@ -28,11 +28,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from upside_md_tpu.nodes.basic import DUMMY_RAMA_ANGLE, _rama_coord
-from upside_md_tpu.nodes.hmm import _fixed_hmm, _torus_dbn
-from upside_md_tpu.nodes.placement import _rama_placement
-from upside_md_tpu.ops.geometry import rigid_alignment
-from upside_md_tpu.ops.spline import fit_periodic_bspline_2d
+from upside_md.nodes.basic import DUMMY_RAMA_ANGLE, _rama_coord
+from upside_md.nodes.hmm import _fixed_hmm, _torus_dbn
+from upside_md.nodes.placement import _rama_placement
+from upside_md.ops.geometry import rigid_alignment
+from upside_md.ops.spline import fit_periodic_bspline_2d
 
 from test_reference_goldens2 import (_ref_eval_periodic_2d,
                                      _ref_quat_to_rot,

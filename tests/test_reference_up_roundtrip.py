@@ -20,8 +20,8 @@ import h5py
 import numpy as np
 import pytest
 
-from upside_md_tpu.config.builder import ConfigBuilder
-from upside_md_tpu.config.reader import load_system
+from upside_md.config.builder import ConfigBuilder
+from upside_md.config.reader import load_system
 
 from helpers import chain_positions
 
@@ -420,7 +420,7 @@ def _write_reference_style_sidechain_up(path, fasta, pos,
 
 @pytest.fixture
 def reference_sidechain_up(tmp_path, rng):
-    from upside_md_tpu.bench_systems import (ENVIRONMENT, SIDECHAIN,
+    from upside_md.bench_systems import (ENVIRONMENT, SIDECHAIN,
                                              have_reference_params)
     if not have_reference_params():
         pytest.skip("reference parameter libraries not present")
@@ -449,7 +449,7 @@ def test_reference_style_sidechain_up_matches_builder(reference_sidechain_up,
     """Per-term energies of the reference-writer-shaped sidechain file
     (packed rotamer ids, coverage, environment) equal the repo
     ConfigBuilder's own output for the same system."""
-    from upside_md_tpu.bench_systems import ENVIRONMENT, SIDECHAIN
+    from upside_md.bench_systems import ENVIRONMENT, SIDECHAIN
     path, pos = reference_sidechain_up
     b = ConfigBuilder(np.asarray(SC_SEQ), initial_pos=pos)
     b.add_rotamer_sidechains(SIDECHAIN, SIDECHAIN, damping=0.4,

@@ -11,8 +11,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from upside_md_tpu import build_system
-from upside_md_tpu.nodes.rotamer import (
+from upside_md import build_system
+from upside_md.nodes.rotamer import (
     MAX_ROT, assemble_rotamer_energies, make_rotamer_consts,
     rotamer_marginals)
 

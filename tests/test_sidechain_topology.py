@@ -6,7 +6,7 @@ compute_rotamer_centers.cpp)."""
 import jax.numpy as jnp
 import numpy as np
 
-from upside_md_tpu.sidechain_topology import (N_CHI, SIDECHAIN_TOPOLOGY,
+from upside_md.sidechain_topology import (N_CHI, SIDECHAIN_TOPOLOGY,
                                               atom_names, deg,
                                               residue_atoms)
 
@@ -56,9 +56,9 @@ def test_chi_rotations_move_only_downstream_atoms():
 def test_library_regeneration_end_to_end(tmp_path, rng):
     """Rotamer samples -> generated sidechain.h5 -> config builder ->
     loaded system -> BP free energy and forces run (VERDICT item 7)."""
-    from upside_md_tpu.config.builder import ConfigBuilder
-    from upside_md_tpu.config.reader import load_system
-    from upside_md_tpu.param_gen import generate_sidechain_library
+    from upside_md.config.builder import ConfigBuilder
+    from upside_md.config.reader import load_system
+    from upside_md.param_gen import generate_sidechain_library
 
     seq1 = "VLSK"
     three = {"V": "VAL", "L": "LEU", "S": "SER", "K": "LYS"}

@@ -3,9 +3,9 @@
 import numpy as np
 import jax.numpy as jnp
 
-from upside_md_tpu import build_system
-from upside_md_tpu.md.integrator import INTEGRATOR_COEFFS, clip_force
-from upside_md_tpu.md.sim import Simulation
+from upside_md import build_system
+from upside_md.md.integrator import INTEGRATOR_COEFFS, clip_force
+from upside_md.md.sim import Simulation
 
 from helpers import spec
 

@@ -9,7 +9,7 @@ import h5py
 import numpy as np
 import pytest
 
-from upside_md_tpu.config.builder import ConfigBuilder
+from upside_md.config.builder import ConfigBuilder
 
 # group name -> (required datasets, required attrs), from the reference
 # readers' traverse_dset/check_size/read_attribute calls
@@ -79,7 +79,7 @@ def full_config(tmp_path_factory):
     import os
     if not os.path.exists(SIDECHAIN):
         pytest.skip("reference parameter libraries not mounted")
-    from upside_md_tpu.config.builder import \
+    from upside_md.config.builder import \
         uniform_rama_maps_from_reference
     path = str(tmp_path_factory.mktemp("conf") / "full.up")
     b = ConfigBuilder(f">x\n{SEQ}\n", seed=1)

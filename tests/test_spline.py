@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import pytest
 from scipy.interpolate import CubicSpline
 
-from upside_md_tpu.ops.spline import (
+from upside_md.ops.spline import (
     eval_bspline, eval_clamped_bspline, eval_periodic_bspline_2d,
     eval_clamped_interp, fit_clamped_interp_bspline,
     fit_periodic_bspline_1d, fit_periodic_bspline_2d)

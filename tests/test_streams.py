@@ -4,13 +4,13 @@ shapes, and internal consistency with the potential terms."""
 import numpy as np
 import jax.numpy as jnp
 
-from upside_md_tpu.io.streams import (LOG_BASIC, LOG_DETAILED,
+from upside_md.io.streams import (LOG_BASIC, LOG_DETAILED,
                                       LOG_EXTENSIVE, make_stream_fn,
                                       n_hbond, stream_plan)
 
 
 def _backbone_system():
-    from upside_md_tpu.bench_systems import TRP_CAGE, build_backbone_system
+    from upside_md.bench_systems import TRP_CAGE, build_backbone_system
     return build_backbone_system(seq=TRP_CAGE)
 
 
@@ -64,8 +64,8 @@ def test_frame_fn_hamiltonian_per_slot_params():
     """Hamiltonian mode: per-frame streams and potentials for slot k must
     be computed under slot k's parameters (VERDICT r2 weak #3)."""
     import jax
-    from upside_md_tpu.io.streams import make_frame_fn
-    from upside_md_tpu.md.sim import stack_param_ensembles
+    from upside_md.io.streams import make_frame_fn
+    from upside_md.md.sim import stack_param_ensembles
 
     system, params, pos, aux = _backbone_system()
     p1 = jax.tree.map(lambda x: x, params)
@@ -82,8 +82,11 @@ def test_frame_fn_hamiltonian_per_slot_params():
     # single-slot evaluations under each slot's own params
     e0 = float(system.evaluate(jnp.asarray(pos), params)[0])
     e1 = float(system.evaluate(jnp.asarray(pos), p1)[0])
-    assert abs(float(pot[0]) - e0) < 1e-3
-    assert abs(float(pot[1]) - e1) < 1e-3
+    # relative bound: the system's positions load as float32, so the
+    # terms are float32 sums, and the jitted vmapped evaluation sums in
+    # another order than the eager one (~3e-6 relative here)
+    assert abs(float(pot[0]) - e0) < 1e-5 * max(abs(e0), 1.0)
+    assert abs(float(pot[1]) - e1) < 1e-5 * max(abs(e1), 1.0)
     assert abs(e0 - e1) > 1e-3  # the ladder actually differs
 
     # the per-residue rama stream follows its slot's (doubled) map

@@ -7,9 +7,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from upside_md_tpu.bench_systems import TRP_CAGE, build_full_system, \
+from upside_md.bench_systems import TRP_CAGE, build_full_system, \
     have_reference_params
-from upside_md_tpu.training import (energy_gap_loss, fit_packed,
+from upside_md.training import (energy_gap_loss, fit_packed,
                                     rotamer_node_marginals, rotamer_packings,
                                     rotamer_state_restricted_system)
 

@@ -4,8 +4,8 @@ through the rotamer BP envelope gradient."""
 import numpy as np
 import jax.numpy as jnp
 
-from upside_md_tpu import build_system
-from upside_md_tpu.training import (energy_match_loss, fit, merge_params,
+from upside_md import build_system
+from upside_md.training import (energy_match_loss, fit, merge_params,
                                     multi_system_gradient, select_trainable)
 
 from helpers import spec
@@ -67,7 +67,7 @@ def test_quadspline_packing_roundtrip_and_constraints(rng):
     tables, and pack o unpack is the identity on valid tables."""
     import jax.numpy as jnp
 
-    from upside_md_tpu.training import QuadsplinePacking
+    from upside_md.training import QuadsplinePacking
 
     ka, k = 8, 12
     pk = QuadsplinePacking(3, 3, ka, k, symmetric=True)
@@ -102,8 +102,8 @@ def test_packed_training_improves_loss_and_keeps_constraints(rng):
     import jax.numpy as jnp
 
     from tests.test_rotamer import make_bead_system
-    from upside_md_tpu import build_system
-    from upside_md_tpu.training import fit_packed, rotamer_packings
+    from upside_md import build_system
+    from upside_md.training import fit_packed, rotamer_packings
 
     specs, beads, e1, consts, table33 = make_bead_system(
         rng, [3, 6, 3], spread=3.0)

@@ -22,7 +22,6 @@ import os
 import sys
 
 os.environ["JAX_PLATFORMS"] = "cpu"
-os.environ["UPSIDE_BP_DEBUG_ITERS"] = "1"
 # candidate inits are constructed HERE; the node's own (default-on)
 # extrapolation must not stack on top of them
 os.environ["UPSIDE_BP_EXTRAP"] = "off"
@@ -41,12 +40,13 @@ def main():
     n_rounds = int(sys.argv[1]) if len(sys.argv) > 1 else 25
     seq_name = sys.argv[2] if len(sys.argv) > 2 else "UBIQUITIN"
 
-    from upside_md_tpu import bench_systems as bs
-    from upside_md_tpu.md.integrator import INTEGRATOR_COEFFS
-    from upside_md_tpu.md.sim import Simulation
-    from upside_md_tpu.md.thermostat import THERMOSTAT_STREAM, stream_key
+    from upside_md import bench_systems as bs
+    from upside_md.compile_cache import enable_compile_cache
+    enable_compile_cache()
+    from upside_md.md.integrator import INTEGRATOR_COEFFS
+    from upside_md.md.sim import Simulation
+    from upside_md.md.thermostat import THERMOSTAT_STREAM, stream_key
 
-    assert bs.have_reference_params()
     system, params, pos, aux = bs.build_full_system(
         seq=getattr(bs, seq_name))
     sim = Simulation(system, dt=0.009, thermostat_interval=0.135,
@@ -92,11 +92,7 @@ def main():
     # "unif" = the uniform init_cache beliefs, i.e. what the very first
     # evaluation of a run (or a freshly reset replica) sees — the cold-
     # start robustness check for low damping
-    n_res = int(rot_spec.consts["n_res"])
-    valid = np.asarray(rot_spec.consts["valid"])
-    unif = (valid.astype(np.float32),
-            np.ones((n_res, n_res, 6), np.float32),
-            np.int32(0))
+    unif = system.init_cache()[rot]
     strategies = {"warm": None, "log1": (1.0, True), "unif": "unif"}
     print(f"{'damping':>8s} " + "".join(
         f"| {s:>5s} mean med p90 max hit " for s in strategies))
@@ -108,7 +104,7 @@ def main():
             @jax.jit
             def count_eval(p, cache):
                 _, nc = system.energy_and_cache(p, params, cache=cache)
-                return nc[rot][-1]
+                return nc[rot].sweeps
             return count_eval
 
         count_eval = count_fn()

@@ -1,11 +1,10 @@
 """In-loop A/B cost anatomy of the full-forcefield force evaluation.
 
-Methodology (BENCH_NOTES.md round 2): time `Simulation.advance` (a jitted
-fori_loop over integration rounds — 3 force evaluations per round) at 64
-replicas, as the full system and as ablated systems with one subsystem's
-node family removed.  The marginal cost of a block is the full time minus
-the ablated time; host value fetches are the only reliable sync points on
-this backend.
+Times `Simulation.advance` (a jitted fori_loop over integration rounds —
+3 force evaluations per round) at 64 replicas on the GPU, as the full
+system and as ablated systems with one subsystem's node family removed.
+The marginal cost of a block is the full time minus the ablated time.
+Every timed call ends in jax.block_until_ready.
 
 Usage:  python tools/perf_ab.py [n_replica] [n_rounds]
 """
@@ -17,18 +16,11 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
-import jax.numpy as jnp
-import numpy as np
 
-cache = os.environ.get("JAX_COMPILATION_CACHE",
-                       os.path.expanduser("~/.upside_tpu_jax_cache"))
-os.makedirs(cache, exist_ok=True)
-jax.config.update("jax_compilation_cache_dir", cache)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
-
-from upside_md_tpu.bench_systems import UBIQUITIN, build_full_system
-from upside_md_tpu.md.sim import Simulation
-from upside_md_tpu.system import System
+from upside_md.bench_systems import UBIQUITIN, build_full_system
+from upside_md.compile_cache import enable_compile_cache
+from upside_md.md.sim import Simulation
+from upside_md.system import System
 
 ABLATIONS = {
     # name -> node-type names removed (with every dependent node)
@@ -69,13 +61,12 @@ def timed_advance(system, params, pos, n_replica, n_rounds, seed=1234):
                      do_recenter=False)
     state = sim.initial_state(pos, params, seed=seed, temperature=0.85,
                               n_replica=n_replica)
-    state = sim.advance(state, params, n_rounds, True)
-    _ = float(jnp.sum(state.pos))      # sync
+    state = jax.block_until_ready(sim.advance(state, params, n_rounds, True))
     times = []
     for _ in range(3):
         t0 = time.perf_counter()
-        state = sim.advance(state, params, n_rounds, True)
-        _ = float(jnp.sum(state.pos))
+        state = jax.block_until_ready(
+            sim.advance(state, params, n_rounds, True))
         times.append(time.perf_counter() - t0)
     return sorted(times)[1]
 
@@ -83,6 +74,9 @@ def timed_advance(system, params, pos, n_replica, n_rounds, seed=1234):
 def main():
     n_replica = int(sys.argv[1]) if len(sys.argv) > 1 else 64
     n_rounds = int(sys.argv[2]) if len(sys.argv) > 2 else 20
+    enable_compile_cache()
+    if jax.devices()[0].platform != "gpu":
+        sys.exit(f"no GPU: JAX found {jax.devices()[0].platform}")
     system, params, pos, aux = build_full_system(seq=UBIQUITIN)
 
     t_full = timed_advance(system, params, pos, n_replica, n_rounds)
